@@ -1,4 +1,4 @@
-"""CLI: run the TPU receiver from a GNSS-SDR-style configuration file.
+"""CLI: run the receiver from a GNSS-SDR-style configuration file.
 
 Mirrors the reference binary's interface (src/main/main.cc:119):
   python -m gnss_sim_receiver_tpu --config_file=rx.conf [--duration_s=N]

@@ -2,7 +2,7 @@
 
 Mirrors the per-system constant headers of the reference
 (``src/core/system_parameters/GPS_L1_CA.h`` etc.) with only the values the
-TPU receiver chain needs.  All values are public ICD constants.
+receiver chain needs.  All values are public ICD constants.
 """
 
 # --- physical ---------------------------------------------------------------

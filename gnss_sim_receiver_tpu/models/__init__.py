@@ -1,3 +1,3 @@
 """Receiver-stage engines: acquisition, tracking, telemetry, observables,
-PVT — the batched TPU equivalents of the reference's signal-processing
+PVT — the batched device equivalents of the reference's signal-processing
 blocks (src/algorithms/<stage>/gnuradio_blocks/)."""

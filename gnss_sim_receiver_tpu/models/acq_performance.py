@@ -4,7 +4,7 @@ The batched equivalent of the reference's acq_performance_test
 (src/tests/unit-tests/signal-processing-blocks/acquisition/
 acq_performance_test.cc:283-376): measure the PCPS detector's false-alarm
 rate on noise and its detection probability versus C/N0 by running
-thousands of independent trials.  TPU-first: trials are an array axis —
+thousands of independent trials.  Batched: trials are an array axis —
 one jitted program evaluates [trials] grids at once (vmapped pcps_grid),
 so a 1000-trial sweep costs milliseconds instead of the reference's
 minutes of per-trial flowgraph runs.

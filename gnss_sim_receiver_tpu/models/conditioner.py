@@ -21,7 +21,6 @@ import jax.numpy as jnp
 import numpy as np
 
 from gnss_sim_receiver_tpu.ops import filters, resampler
-from gnss_sim_receiver_tpu.utils import xfer
 from gnss_sim_receiver_tpu.utils.config import Configuration
 
 
@@ -81,7 +80,7 @@ class SignalConditioner:
             w = self._beam_weights[: x.shape[0]]
             x = np.einsum("e,en->n", w, x)
             impl = "Pass_Through"
-        y = xfer.device_put_complex(np.asarray(x, dtype=np.complex64))
+        y = jnp.asarray(np.asarray(x, dtype=np.complex64))
         if impl == "Fir_Filter":
             y = filters.fir_filter(y, self._taps, self._decim)
         elif impl == "Freq_Xlating_Fir_Filter":
@@ -106,4 +105,4 @@ class SignalConditioner:
             y = resampler.linear_resampler(y, self._res_ratio, n_out)
         elif self.resampler_impl != "Pass_Through":
             raise ValueError(f"unknown Resampler {self.resampler_impl}")
-        return xfer.host_get(y)
+        return np.asarray(y)

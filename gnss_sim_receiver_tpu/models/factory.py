@@ -3,7 +3,7 @@
 Equivalent of the reference GNSSBlockFactory
 (src/core/receiver/gnss_block_factory.cc:639-1335): maps the
 `Role.implementation` strings of a GNSS-SDR conf file onto this framework's
-engines, so reference conf files drive the TPU receiver unchanged.  Blocks
+engines, so reference conf files drive this receiver unchanged.  Blocks
 whose roles the batched design absorbs (channel adapters, msg queues,
 sample counters) have no standalone object — their parameters land in the
 corresponding engine conf.

@@ -177,7 +177,7 @@ def _band_code(system: str, freq_hz: float | None) -> str:
 
 def write_rinex_obs(path, epochs, prns, week: int, *,
                     systems=None, carrier_freq_hz=None,
-                    marker: str = "TPU0") -> None:
+                    marker: str = "GNSS0") -> None:
     """RINEX 3.02 multi-GNSS observation file: per-system observation
     types (C/L/D/S per band actually present), one satellite line per
     epoch with same-satellite multi-band channels merged onto one record
@@ -525,7 +525,7 @@ def _d19(x) -> str:
 
 
 def write_rinex2_obs(path, epochs, prns, week: int, *,
-                     marker: str = "TPU0") -> None:
+                     marker: str = "GNSS0") -> None:
     """RINEX 2.11 GPS observation file (C1 L1 D1 S1).  Satellites of
     other systems are skipped — version 2 output in the reference is a
     GPS-era format (rinex_printer.cc version==2 branches)."""

@@ -1,6 +1,6 @@
 """Receiver driver: host-side orchestration of the full chain.
 
-The TPU framework's control plane — the role of the reference's
+The framework's control plane — the role of the reference's
 ControlThread + GNSSFlowgraph + per-channel FSM (src/core/receiver/
 control_thread.cc, gnss_flowgraph.cc, channel_fsm): acquisition
 scheduling with re-acquisition and satellite rotation, acquisition ->
@@ -892,11 +892,10 @@ class ReceiverSession:
         conf.rf_fs[rf] (the reference's Multichannel_File_Signal_Source /
         per-RF-channel conditioner, gnss_flowgraph.cc:1008-1136).  All
         streams must start at the same instant (coherent front end)."""
-        from gnss_sim_receiver_tpu.utils import xfer
+        import jax.numpy as jnp
         for rf, x in streams.items():
             if isinstance(x, np.ndarray):
-                x = xfer.device_put_complex(
-                    np.ascontiguousarray(x, dtype=np.complex64))
+                x = jnp.asarray(np.ascontiguousarray(x, dtype=np.complex64))
             self._x_rf[int(rf)] = x
             self._len_rf[int(rf)] = len(x)
         missing = {rt.spec.rf_channel_id for rt in self.chains} \
@@ -1166,7 +1165,7 @@ class ReceiverSession:
         advance (caller should wait for more data)."""
         import os as _os
         import time as _time
-        _dbg = _os.environ.get("GNSS_TPU_TIMING")
+        _dbg = _os.environ.get("GNSS_RX_TIMING")
         _t0 = _time.perf_counter()
         conf = self.conf
         chains = self.chains

@@ -1,10 +1,8 @@
-"""Block-processing tracking kernel: the TPU speed-of-light path.
+"""Block-processing tracking kernel: the receiver's steady-state path.
 
 The per-epoch scan (models.tracking) runs one `lax.scan` step per code
-epoch; on TPU every step costs ~0.4 ms of small-op latency (dominated by
-the per-sample code-table gather), capping the receiver near 2x realtime
-regardless of batching.  This kernel restructures steady-state tracking
-the TPU-first way:
+epoch and gathers every channel's samples per epoch.  This kernel
+restructures steady-state tracking:
 
 - ONE scan step per BLOCK of `e_block` epochs (default 20 = one GPS bit;
   the loops close at block cadence with the narrow bandwidths — exactly
@@ -12,14 +10,11 @@ the TPU-first way:
   dll_pll_veml_tracking.cc:1933-2027);
 - ONE shared set of window spectra for ALL channels: the chunk is cut
   into a fixed overlapping window grid (length ~2 code periods, stride
-  one period) and FFT'd ONCE up front via the MXU matmul-DFT
-  (ops/mxu_fft).  Each channel/epoch then row-gathers its window — the
-  r4 design FFT'd a per-channel carrier-wiped copy of every window,
-  which made FFT traffic scale as channels x epochs and saturated the
-  kernel at ~1.7 Gsamp/s (VERDICT r4 weak #4);
+  one period) and FFT'd ONCE up front.  Each channel/epoch then reads its
+  window, so FFT work does not scale with channels x epochs;
 - carrier wipeoff moves into the REPLICA: each channel's band-limited
-  code table is multiplied by its Doppler ramp exp(+j w n) and DFT'd
-  per block ([C, F2] — tiny on the MXU), which is exactly equivalent to
+  code table is multiplied by its Doppler ramp exp(+j w n) and FFT'd
+  per block ([C, F2]), which is exactly equivalent to
   wiping the signal (sum_n x[n] e^{-jwn} c[n-t] =
   e^{-jwt} sum_n x[n] g[n-t], g = c e^{-jwn}, and
   G[-f] = conj(FFT(c e^{+jwn}))); the leftover e^{-jw t} and the
@@ -27,7 +22,7 @@ the TPU-first way:
   scalars folded into the lag/tap phasors.  No approximation — Doppler
   is NOT quantized to window bins;
 - the E/P/L taps drop out of one einsum against per-epoch DTFT-exact
-  fractional-lag phase ramps, as in r4;
+  fractional-lag phase ramps;
 - epoch boundaries in closed form: with the code NCO rate constant
   within a block, the cumulative sample count of epoch e is EXACTLY
   round(e*S - u0) (S = code period in samples, u0 = phase offset), so
@@ -48,9 +43,8 @@ two-quadrant decision-directed form (ops/discriminators
 fll_cross_dot_decision) whose +-1/(4T) = +-250 Hz range covers the
 +-125 Hz acquisition-grid error while being fully insensitive to the
 secondary-chip flips that corrupt four-quadrant pairs — so ALL chains
-hand off from acquisition straight into block mode (VERDICT r4 next
-#3).  Once the secondary code is synced and wiped, the four-quadrant
-form takes over per channel.
+hand off from acquisition straight into block mode.  Once the secondary
+code is synced and wiped, the four-quadrant form takes over per channel.
 
 State interop: consumes and produces the SAME TrackState as the
 per-epoch kernel, so chunks can alternate kernels freely.
@@ -66,7 +60,7 @@ import numpy as np
 
 from gnss_sim_receiver_tpu.models.tracking import (TrackState, TrackingConf,
                                                    N_SEC_MAX, _DECIM_F32)
-from gnss_sim_receiver_tpu.ops import discriminators, mxu_fft
+from gnss_sim_receiver_tpu.ops import discriminators
 from gnss_sim_receiver_tpu.ops import loop_filters as lf
 
 # window grid lead: windows start LEAD samples before their s0-grid
@@ -75,23 +69,39 @@ from gnss_sim_receiver_tpu.ops import loop_filters as lf
 _LEAD = 16
 
 
+def good_size(n: int) -> int:
+    """Smallest 5-smooth (2^a 3^b 5^c) integer >= n: a length the FFT
+    library factors into small radices."""
+    best = 1 << int(np.ceil(np.log2(max(n, 1))))
+    p5 = 1
+    while p5 < best:
+        p3 = p5
+        while p3 < best:
+            p2 = p3
+            while p2 < n:
+                p2 *= 2
+            best = min(best, p2)
+            p3 *= 3
+        p5 *= 5
+    return best
+
+
 def block_fft_size(conf: TrackingConf) -> int:
     """Shared-window FFT length: stride is one code period, so any
     epoch that STARTS inside window w's first period (plus the LEAD
     margin and the <=2-sample closed-form rounding drift) must FIT —
     one period for the start offset + one period of replica + tap
-    margin.  5-smooth so the matmul-DFT factors into two near-sqrt
-    stages."""
+    margin, rounded up to a 5-smooth length."""
     s0 = conf.nominal_epoch_samples
-    return mxu_fft.good_size(2 * s0 + 2 * _LEAD + 32)
+    return good_size(2 * s0 + 2 * _LEAD + 32)
 
 
 def code_spectra(conf: TrackingConf, code_tables, oversample: int = 8):
     """fs-sampled band-limited replica, zero-padded to the window FFT
     length -> [C, F2] float32 (device).  TIME domain: the kernel builds
     each block's replica SPECTRUM on device by applying the channel's
-    Doppler ramp and matmul-DFT-ing (Doppler lives in the replica now,
-    see module docstring), so the host precomputes only the waveform.
+    Doppler ramp and FFT-ing (Doppler lives in the replica, see module
+    docstring), so the host precomputes only the waveform.
 
     The replica is the band-limited sub-chip table
     (prn_codes.bandlimited_table_normalized) sampled at fs over one code
@@ -102,7 +112,6 @@ def code_spectra(conf: TrackingConf, code_tables, oversample: int = 8):
     `code_tables` may be raw +-1 chip tables [C, L] (band-limited and
     normalized here) or prebuilt band-limited tables [C, L*K]
     (TrackingEngine.codes).  Host-side precompute, not a hot path.
-    (Name kept from the r4 spectral-precompute API.)
     """
     from gnss_sim_receiver_tpu.ops import prn_codes
 
@@ -129,7 +138,7 @@ def code_spectra(conf: TrackingConf, code_tables, oversample: int = 8):
 
 def _window_spectra(x_chunk: jax.Array, s0: int, nfft: int):
     """Overlapping fixed-grid windows (start w*s0 - LEAD, length nfft)
-    over the whole chunk, FFT'd in one MXU batch -> [W, F2] complex64.
+    over the whole chunk, FFT'd in one batch -> [W, F2] complex64.
     Built with a reshape+concat (no per-window dynamic slices)."""
     lead = _LEAD
     n = x_chunk.shape[0] + lead
@@ -142,7 +151,18 @@ def _window_spectra(x_chunk: jax.Array, s0: int, nfft: int):
     rows = xp.reshape(w + k, s0)
     wins = jnp.concatenate([rows[i:w + i] for i in range(k)],
                            axis=1)[:, :nfft]
-    return mxu_fft.fft(wins)
+    return jnp.fft.fft(wins, axis=-1)
+
+
+def _replica_spectra(codes_rep: jax.Array, omega: jax.Array) -> jax.Array:
+    """Conjugate spectra of the Doppler-ramped block replicas -> [C, F2]:
+    exp(+j w m) * code, FFT'd, is exactly the conjugate spectrum of the
+    carrier-at-Doppler replica (see the module docstring)."""
+    m = jax.lax.broadcasted_iota(jnp.float32, (1, codes_rep.shape[1]), 1)
+    ramp = omega[:, None] * m                                  # [C, F2]
+    rep_t = jax.lax.complex(codes_rep * jnp.cos(ramp),
+                            codes_rep * jnp.sin(ramp))
+    return jnp.conj(jnp.fft.fft(rep_t, axis=-1))
 
 
 @partial(jax.jit, static_argnames=("conf", "n_blocks", "e_block"))
@@ -169,7 +189,6 @@ def track_chunk_blocks(conf: TrackingConf, n_blocks: int, e_block: int,
     f_raw = jnp.arange(nfft, dtype=jnp.float32)
     f_bins = jnp.where(f_raw >= nfft // 2, f_raw - nfft, f_raw)   # [F]
     two_pi = jnp.float32(2.0 * np.pi)
-    m_axis = jax.lax.broadcasted_iota(jnp.float32, (1, nfft), 1)  # [1, F]
 
     # ---- shared window spectra, ONCE per chunk -------------------------
     xf_all = _window_spectra(x_chunk, s0, nfft)               # [W, F2]
@@ -202,28 +221,20 @@ def track_chunk_blocks(conf: TrackingConf, n_blocks: int, e_block: int,
             * rate / jnp.float32(fs)
 
         # ---- replica spectra with the Doppler ramp ---------------------
-        # exp(+j w m) * code, DFT'd on the MXU: exactly the conjugate
-        # spectrum of the carrier-at-Doppler replica (see module
-        # docstring); [C, F2] per block — the ONLY per-channel FFT work
+        # [C, F2] per block — the ONLY per-channel FFT work
         omega = two_pi * dop / jnp.float32(fs)                 # rad/sample
-        ramp = omega[:, None] * m_axis                         # [C, F2]
-        rep_t = jax.lax.complex(codes_rep * jnp.cos(ramp),
-                                codes_rep * jnp.sin(ramp))
-        rf = jnp.conj(mxu_fft.fft(rep_t))                      # [C, F2]
+        rf = _replica_spectra(codes_rep, omega)                # [C, F2]
 
         # ---- window selection: contiguous slab per channel -------------
         # epoch e of channel c always fits window w0_c + e: within one
         # block the epoch-start drift off the w0_c + e*s0 grid is
         # |u0| + E*|s_per - s0| <= a few samples, absorbed by the LEAD
         # margin below and the window's tail margin (block_fft_size).
-        # A contiguous dynamic-slice of E rows per channel is the point:
-        # a data-dependent per-(c,e) row gather xf_all[w_ce] lowers to a
-        # true XLA gather that measured ~5.5 ms per signal-second at
-        # 12ch — more than the rest of the kernel combined — and
-        # vmap(dynamic_slice) over per-channel starts lowers to the same
-        # gather.  An UNROLLED loop of scalar-start dynamic slices stays
-        # a plain DMA per channel (measured flat in C: 2.6 ms/50 blocks
-        # at both 12 and 48 channels, vs 3.7/6.8 for the vmap form)
+        # A contiguous slab of E rows per channel, cut by an unrolled
+        # loop of scalar-start dynamic slices (one plain copy per
+        # channel), instead of a data-dependent per-(c,e) row gather
+        # xf_all[w_ce] or vmap(dynamic_slice), which both lower to an
+        # XLA gather.  Which form is fastest on the GPU is not measured.
         w0 = jnp.clip(st.pos // jnp.int32(s0), 0,
                       jnp.int32(max(n_wins - e_block, 0)))     # [C]
         xf = jnp.stack([
@@ -256,8 +267,7 @@ def track_chunk_blocks(conf: TrackingConf, n_blocks: int, e_block: int,
         # where linear interpolation of the triangle is worst, losing up
         # to ~26% amplitude and biasing each tap differently).
         # FACTORED: e^{j2pi f (lag+tap)/N} = lag phasor [C,E,F] x tap
-        # phasor [C,K,F] — the joint [C,E,K,F] phasor would be 5x the
-        # HBM traffic; the tap contraction becomes an [E,F]x[F,K] matmul.
+        # phasor [C,K,F], contracted over F per tap (below).
         # The carrier-phase scalars ride along in the same angles:
         #   e^{-j(rem_carr + w*ecs)}  per (c,e)  — the channel's carrier
         #     phase at the exact fractional epoch start (the identity's
@@ -290,9 +300,12 @@ def track_chunk_blocks(conf: TrackingConf, n_blocks: int, e_block: int,
                  - (omega[:, None] * tap_samps)[..., None])    # [C, K, F]
         pt = jax.lax.complex(jnp.cos(ang_t), jnp.sin(ang_t))
         z = xf * rf[:, None, :] * pl                           # [C, E, F]
-        corr = jnp.einsum("cef,ckf->cek", z, pt,
-                          preferred_element_type=jnp.complex64) \
-            / jnp.float32(nfft)
+        # a multiply-and-sum over F, not an einsum: as a dot the GPU runs
+        # it in TF32 at default precision (up to 1.8e-4 of |P| off at
+        # 20 Msps; chip_smoke.py's tolerance is 1e-4), and in float32 at
+        # HIGHEST it is 2.5x slower than this fused float32 reduction
+        corr = jnp.sum(z[:, :, None, :] * pt[:, None, :, :], axis=-1) \
+            / jnp.float32(nfft)                                # [C, E, K]
 
         prompt = corr[:, :, prompt_i]                          # [C, E]
         early = corr[:, :, prompt_i - 1]
@@ -305,9 +318,7 @@ def track_chunk_blocks(conf: TrackingConf, n_blocks: int, e_block: int,
         # places the replica
         data_prompt = None
         if data_codes_rep is not None:
-            rep_td = jax.lax.complex(data_codes_rep * jnp.cos(ramp),
-                                     data_codes_rep * jnp.sin(ramp))
-            rfd = jnp.conj(mxu_fft.fft(rep_td))                # [C, F2]
+            rfd = _replica_spectra(data_codes_rep, omega)      # [C, F2]
             yd = xf * rfd[:, None, :]                          # [C, E, F]
             data_prompt = jnp.sum(yd * pl, axis=-1) / jnp.float32(nfft)
 

@@ -4,6 +4,9 @@ Equivalents of the reference's gnss_synchro_monitor GR sink
 (src/core/monitor/gnss_synchro_monitor.cc:73-90: every decimation_factor
 epochs, serialize the channel vector and send to the configured UDP
 endpoints) and monitor_pvt_udp_sink (PVT/libs/monitor_pvt_udp_sink.cc).
+
+The generated protobuf modules are imported by the sink constructors, so a
+receiver with no monitor configured never imports protobuf.
 """
 
 from __future__ import annotations
@@ -13,7 +16,6 @@ import socket
 import numpy as np
 
 from gnss_sim_receiver_tpu.models.outputs import geohash, gps_time_to_utc
-from gnss_sim_receiver_tpu.monitor import gnss_synchro_pb2, monitor_pvt_pb2
 from gnss_sim_receiver_tpu.utils import geodesy
 
 
@@ -33,6 +35,8 @@ class GnssSynchroUdpSink:
 
     def __init__(self, addresses, port: int, prns, fs: float,
                  decimation_factor: int = 1):
+        from gnss_sim_receiver_tpu.monitor import gnss_synchro_pb2
+        self._pb = gnss_synchro_pb2
         self.sender = _UdpSender(addresses, port)
         self.prns = list(prns)
         self.fs = fs
@@ -51,7 +55,7 @@ class GnssSynchroUdpSink:
             self._count += 1
             if self._count % self.decim:
                 continue
-            msg = gnss_synchro_pb2.Observables()
+            msg = self._pb.Observables()
             for c, prn in enumerate(prn_list):
                 o = msg.observable.add()
                 o.system = system
@@ -85,11 +89,13 @@ class MonitorPvtUdpSink:
     """Streams one MonitorPvt message per PVT solution."""
 
     def __init__(self, addresses, port: int, week: int = 0):
+        from gnss_sim_receiver_tpu.monitor import monitor_pvt_pb2
+        self._pb = monitor_pvt_pb2
         self.sender = _UdpSender(addresses, port)
         self.week = week
 
     def send_solution(self, sol) -> None:
-        m = monitor_pvt_pb2.MonitorPvt()
+        m = self._pb.MonitorPvt()
         m.tow_at_current_symbol_ms = int(sol.rx_time_corrected_s * 1000) \
             % 604800000
         m.week = self.week

@@ -21,7 +21,7 @@ modules:
   (``tidedisp`` -> ``tide_solid`` -> ``tide_pl``) and
   rtklib_sbas/rtkcmn ``sunmoonpos_eci``.
 
-TPU note: these run on the host at PVT cadence (a few Hz); they are
+Note: these run on the host at PVT cadence (a few Hz); they are
 pure-NumPy by design -- the device budget belongs to tracking.
 """
 
@@ -166,7 +166,7 @@ class Sp3Ephemeris:
         return out
 
 
-def write_sp3(path, week, tow_s, sat_pos_clk, agency="TPU"):
+def write_sp3(path, week, tow_s, sat_pos_clk, agency="GSR"):
     """Write an SP3-c file.  ``sat_pos_clk``: {key: (pos_m[T,3],
     clk_s[T])} sampled at ``tow_s`` [T].  Inverse of Sp3Ephemeris for
     tests and the simulator."""

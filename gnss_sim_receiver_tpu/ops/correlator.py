@@ -1,6 +1,6 @@
 """Batched carrier-wipeoff + multi-tap code correlator.
 
-This is the receiver's hot kernel — the TPU-native analogue of the
+This is the per-epoch tracking kernel — the batched analogue of the
 reference's multicorrelator stack:
   - volk_gnsssdr_32f_xn_resampler_32f_xn          (N-tap code resampling)
   - volk_gnsssdr_32fc_32f_rotator_dot_prod_32fc_xn (rotator + N dot products)
@@ -11,7 +11,7 @@ Design: every tracking channel correlates a fixed-size sample block gathered
 from a shared device-resident sample chunk at a per-channel offset.  The
 carrier NCO (sin/cos), code NCO (fractional chip index -> code-table gather)
 and the K-tap complex dot products are fused into one XLA program, batched
-over channels; the tap reduction is an einsum so the MXU/VPU sees one
+over channels; the tap reduction is an einsum, one
 [C,K,B]x[C,B] contraction instead of C*K scalar loops.
 
 All shapes static: B (block length) and K (taps) are compile-time; the

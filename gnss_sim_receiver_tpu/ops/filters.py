@@ -4,7 +4,7 @@ notch, pulse blanking.
 Batched XLA equivalents of the reference input_filter stage
 (src/algorithms/input_filter/adapters/: Fir_Filter,
 Freq_Xlating_Fir_Filter, Notch_Filter, Notch_Filter_Lite,
-Pulse_Blanking_Filter).  Convolutions map onto the MXU via
+Pulse_Blanking_Filter).  Convolutions run as
 lax.conv_general_dilated; the IIR notch carries its recursion through
 lax.scan (blockwise, so XLA sees a static loop).
 """

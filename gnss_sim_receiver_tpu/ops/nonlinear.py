@@ -7,7 +7,7 @@ Role parity with the reference's tracking library
 ``update_sequential`` over an arbitrary ``ModelFunction``), after
 Arasaratnam & Haykin, "Cubature Kalman Filters", IEEE TAC 54(6), 2009.
 
-TPU-first design: instead of the reference's stateful classes looping
+Batched design: instead of the reference's stateful classes looping
 over sigma points one ``arma::vec`` at a time, each rule is a pure
 function whose sigma-point propagation is a single vmapped batch — the
 model function is evaluated on an ``[n_pts, nx]`` array in one XLA

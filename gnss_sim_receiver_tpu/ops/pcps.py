@@ -1,6 +1,6 @@
 """Batched Parallel Code Phase Search (PCPS) acquisition kernels.
 
-TPU-native replacement for the reference's FFT acquisition core
+Batched replacement for the reference's FFT acquisition core
 (src/algorithms/acquisition/gnuradio_blocks/pcps_acquisition.cc:600-871) and
 its OpenCL/FPGA offload variants: the entire (channels x Doppler bins x code
 delay) search grid is computed as one batched XLA FFT program instead of a

@@ -5,8 +5,7 @@ parallel — every per-channel array in the receiver (tracking state, PRN
 code tables, correlator outputs, acquisition grids) has the channel axis
 leading, so sharding that axis over the mesh scales tracking and
 acquisition linearly; the IF sample stream is replicated (every channel
-reads the same antenna samples), which matches HBM capacity (a 20 ms chunk
-at 10 Msps is ~1.6 MB).  Observables/PVT gather is a per-epoch host pull of
+reads the same antenna samples; a 20 ms chunk at 10 Msps is ~1.6 MB).  Observables/PVT gather is a per-epoch host pull of
 a few hundred bytes per channel.
 
 Acquisition's Doppler axis can additionally be sharded for single-channel

@@ -1,4 +1,4 @@
-"""Explicit-collective device steps (shard_map) for multi-chip / multi-host
+"""Explicit-collective device steps (shard_map) for multi-device / multi-host
 scale-out.
 
 Three sharded programs cover the receiver's scale axes (SURVEY.md §2.13/§7;
@@ -24,10 +24,10 @@ threads map here onto mesh axes):
     FFT segmentation with halo exchange"), folds its valid lags modulo the
     code period, and the non-coherent grid is combined with `psum`.
 
-Multi-host: the same code runs over a 2-D (host, chip) mesh built by
-make_multihost_mesh() after jax.distributed.initialize(); the channel/time
-axis is laid over chips (ICI) first, hosts (DCN) second, so all_gather
-rides ICI within a host and only the final epoch records cross DCN.
+Multi-host: the same code runs over the all-process mesh built by
+make_multihost_mesh() after jax.distributed.initialize().  The 1-D
+channel/time axis follows the algorithm alone: the cards of one host are
+joined all to all, so no axis order is preferred within a host.
 """
 
 from __future__ import annotations
@@ -46,8 +46,8 @@ from gnss_sim_receiver_tpu.parallel.mesh import CHANNEL_AXIS
 def make_multihost_mesh(axis: str = CHANNEL_AXIS) -> Mesh:
     """All-process mesh for multi-host runs.  Call
     jax.distributed.initialize(coordinator, n_hosts, host_id) first; the
-    flat axis enumerates chips ICI-major (jax.devices() orders local chips
-    contiguously), so a channel group lives on one host's ICI domain."""
+    flat axis enumerates devices in jax.devices() order, which keeps each
+    host's devices contiguous, so a channel group lives on one host."""
     return Mesh(np.array(jax.devices()), (axis,))
 
 

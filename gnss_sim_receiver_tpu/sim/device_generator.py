@@ -1,4 +1,4 @@
-"""Device-side (TPU) batch signal synthesizer.
+"""Device-side batch signal synthesizer.
 
 Same signal model as sim.signal_generator (the bladeGPS/gnss-sim role:
 rectangular chips, linearized delay/Doppler per 8192-sample anchor block,
@@ -9,7 +9,8 @@ two gathers (code chip, nav symbol) + carrier rotation + sum over
 satellites — runs as one fused XLA program per sample chunk.
 
 A 48-satellite, 4.092 Msps, 20 s scenario takes minutes in the host
-NumPy path and seconds here; bench.py's full-chain scenario uses this.
+NumPy path and seconds here; chip_smoke.py's receiver phase uses the
+device-resident form.
 Numerical parity with the host generator is float32-rounding level
 (tests/test_device_generator.py).
 """
@@ -22,7 +23,6 @@ import numpy as np
 
 from gnss_sim_receiver_tpu import constants
 from gnss_sim_receiver_tpu.sim import signal_generator as sg
-from gnss_sim_receiver_tpu.utils import xfer
 
 _B = 8192               # anchor block (matches sg._ANCHOR_BLOCK semantics)
 
@@ -38,7 +38,7 @@ def _expand_chunk(codes, code_len, bits, bits_len, sc_per_sym,
     sc_per_sym [S] sub-chips per nav symbol
     base [S, nblk] int32 global sub-chip index at block anchor
     frac/crate/ph0/phr [S, nblk] f32 linearization coefficients
-    -> (re, im) float32 [nblk * b]
+    -> complex64 [nblk * b]
     """
     import jax
     import jax.numpy as jnp
@@ -63,7 +63,7 @@ def _expand_chunk(codes, code_len, bits, bits_len, sc_per_sym,
         s = jnp.float32(np.sqrt(0.5))
         re = re + s * n[0]
         im = im + s * n[1]
-    return re, im
+    return jax.lax.complex(re, im)
 
 
 def _sat_tables(sats):
@@ -157,14 +157,13 @@ def generate_baseband_device(sats, fs: float, n_samples: int, *,
         if (base + int(np.ceil(crate.max() * _B)) + 1).max() >= 2 ** 31:
             raise OverflowError("scenario too long for int32 chip indices")
         key, sub = jax.random.split(key)
-        re, im = _expand_chunk(
+        chunk = _expand_chunk(
             codes_d, lcs_d, bits_d, nbs_d, sps_d,
             jax.device_put(base.astype(np.int32)),
             jax.device_put(frac), jax.device_put(crate),
             jax.device_put(ph0), jax.device_put(phr),
             jax.device_put(amp), sub, _B, bool(noise))
-        out[pos:pos + n] = (np.asarray(xfer.host_get(re))[:n]
-                            + 1j * np.asarray(xfer.host_get(im))[:n])
+        out[pos:pos + n] = np.asarray(chunk)[:n]
         pos += n
     return out
 
@@ -175,10 +174,9 @@ def generate_baseband_device_resident(sats, fs: float, n_samples: int, *,
                                       chunk_samples: int = 4_194_304):
     """generate_baseband_device, but the capture STAYS ON DEVICE as one
     complex64 jax.Array — the zero-transfer input for
-    Receiver.process_array (bench.py's full-chain scenario feeds this
-    straight into tracking/acquisition; nothing ever crosses the host
-    link, which is the whole point on a bandwidth-limited TPU
-    attachment)."""
+    Receiver.process_array (chip_smoke.py's receiver phase feeds this
+    straight into tracking/acquisition; no sample crosses the host
+    link)."""
     import jax
     import jax.numpy as jnp
 
@@ -201,13 +199,13 @@ def generate_baseband_device_resident(sats, fs: float, n_samples: int, *,
         if (base + int(np.ceil(crate.max() * _B)) + 1).max() >= 2 ** 31:
             raise OverflowError("scenario too long for int32 chip indices")
         key, sub = jax.random.split(key)
-        re, im = _expand_chunk(
+        chunk = _expand_chunk(
             codes_d, lcs_d, bits_d, nbs_d, sps_d,
             jax.device_put(base.astype(np.int32)),
             jax.device_put(frac), jax.device_put(crate),
             jax.device_put(ph0), jax.device_put(phr),
             jax.device_put(amp), sub, _B, bool(noise))
-        parts.append(xfer._combine(re[:n], im[:n]))
+        parts.append(chunk[:n])
         pos += n
     x = parts[0] if len(parts) == 1 else jnp.concatenate(parts)
     return x[:n_samples]

@@ -1,6 +1,6 @@
 """The inter-stage data model.
 
-TPU-native equivalent of the reference's ``Gnss_Synchro`` record
+Batched equivalent of the reference's ``Gnss_Synchro`` record
 (src/core/system_parameters/gnss_synchro.h:38-238).  Where the reference
 passes one struct per channel per integration period through GNU Radio ring
 buffers, we carry a *batch*: a struct-of-arrays over ``[..., n_channels]``

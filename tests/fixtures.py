@@ -1,6 +1,7 @@
 """Shared test fixtures: cached static scenario capture."""
 
 import os
+import tempfile
 
 import numpy as np
 
@@ -15,7 +16,8 @@ DUR = 26.0
 RX_LLH = (40.0, -75.0, 100.0)
 # v2: scenario carrier phase is now geometric (-2*pi*f_c*delay), required
 # for integer DD ambiguities in the RTK end-to-end test
-_CACHE = "/tmp/gnss_tpu_fixture_static_v2.npy"
+_CACHE = os.path.join(tempfile.gettempdir(),
+                      "gnss_fixture_static_v2.npy")
 ROVER_DUR = 20.0
 # rover offset from the base position, east/north/up meters
 ROVER_ENU = (6.0, 3.0, 0.5)
@@ -59,8 +61,10 @@ def static_scenario_capture():
 # the capture.
 RTK_CN0 = 55.0
 RTK_BASE_DUR = 28.0     # subframes 1-3 complete by ~24 s worst case
-_CACHE_RTK_BASE = "/tmp/gnss_tpu_fixture_rtk_base_v3.npy"
-_CACHE_ROVER = "/tmp/gnss_tpu_fixture_rover_v3.npy"
+_CACHE_RTK_BASE = os.path.join(tempfile.gettempdir(),
+                      "gnss_fixture_rtk_base_v3.npy")
+_CACHE_ROVER = os.path.join(tempfile.gettempdir(),
+                      "gnss_fixture_rover_v3.npy")
 
 
 def rtk_base_scenario_capture():
@@ -78,7 +82,8 @@ def rtk_base_scenario_capture():
 
 
 CONTROL_DUR = 32.0
-_CACHE_CONTROL = "/tmp/gnss_tpu_fixture_control_v1.npy"
+_CACHE_CONTROL = os.path.join(tempfile.gettempdir(),
+                      "gnss_fixture_control_v1.npy")
 
 
 def control_scenario_capture():

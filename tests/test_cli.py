@@ -2,6 +2,7 @@
 end-to-end through `python -m gnss_sim_receiver_tpu` (reference analogue:
 gnss_block_factory_test.cc + running the binary)."""
 
+import os
 import textwrap
 
 import numpy as np
@@ -13,6 +14,8 @@ from gnss_sim_receiver_tpu.models.factory import (receiver_conf_from_config,
 from gnss_sim_receiver_tpu.utils.config import FileConfiguration
 from gnss_sim_receiver_tpu.utils.sample_io import write_samples
 from tests.fixtures import static_scenario_capture
+
+DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
 
 CONF = """\
 GNSS-SDR.internal_fs_sps=2000000
@@ -43,9 +46,10 @@ PVT.output_rate_ms=20
 
 
 def test_factory_parses_reference_conf():
-    """The factory must accept an actual reference conf file's keys."""
-    conf = FileConfiguration(
-        "/root/reference/conf/gnss-sdr_GPS_L1_ishort.conf")
+    """The factory must accept a reference conf file's keys (upstream
+    conf/gnss-sdr_GPS_L1_ishort.conf)."""
+    conf = FileConfiguration(os.path.join(DATA,
+                                          "gnss-sdr_GPS_L1_ishort.conf"))
     src = source_from_config(conf)
     assert src.item_type == "ishort"
     assert src.sampling_frequency == 4_000_000
@@ -78,7 +82,7 @@ def test_cli_runs_receiver_from_conf(tmp_path, capsys):
 def test_factory_parses_hybrid_conf():
     """A reference hybrid GPS+Galileo conf yields a 1B signal chain
     (conf/gnss-sdr_Hybrid_byte.conf: Channels_1C=10, Channels_1B=10)."""
-    conf = FileConfiguration("/root/reference/conf/gnss-sdr_Hybrid_byte.conf")
+    conf = FileConfiguration(os.path.join(DATA, "gnss-sdr_Hybrid_byte.conf"))
     rc = receiver_conf_from_config(conf)
     assert rc.fs == 20_000_000
     assert rc.max_channels == 10 and rc.gps_chain
@@ -131,3 +135,27 @@ def test_write_outputs_config_driven(tmp_path):
     for name in ("o.nmea", "o.kml", "o.gpx", "o.geojson"):
         assert (tmp_path / name).exists(), name
 
+
+
+def test_cli_runs_without_protobuf(tmp_path, capsys, monkeypatch):
+    """With no Monitor.* keys the CLI path imports no protobuf: it runs
+    with google.protobuf unimportable."""
+    import sys
+    for name in list(sys.modules):
+        if name.startswith("google.protobuf") or name.endswith("_pb2"):
+            monkeypatch.setitem(sys.modules, name, None)
+        elif name.startswith("gnss_sim_receiver_tpu.monitor"):
+            monkeypatch.delitem(sys.modules, name)   # import afresh
+    monkeypatch.setitem(sys.modules, "google.protobuf", None)
+    with pytest.raises(ImportError):
+        import google.protobuf  # noqa: F401
+    x, _ = static_scenario_capture()
+    cap = tmp_path / "cap.ishort"
+    write_samples(cap, x[: int(2e6 * 2)], "ishort", scale=200.0)
+    conf = tmp_path / "rx.conf"
+    conf.write_text(textwrap.dedent(CONF.format(filename=cap)))
+    # 2 s: the whole CLI path runs; too short for a fix -> exit code 1
+    rc = main([f"--config_file={conf}"])
+    out = capsys.readouterr().out
+    assert rc == 1
+    assert "Channels: PRNs" in out

@@ -7,8 +7,8 @@ reference's accuracy thresholds
 (src/tests/system-tests/libs/position_test_flags.h:31-34:
 2D < 2 m, 3D < 5 m static for the mean position).
 
-The 26 s capture (~200 MB equiv work) is cached under /tmp keyed by
-scenario version so repeated test runs skip synthesis.
+The 26 s capture (~200 MB equiv work) is cached in the temp directory,
+keyed by scenario version, so repeated test runs skip synthesis.
 """
 
 import numpy as np

@@ -9,6 +9,7 @@ engine and a joint PVT.  Also checks a Galileo-only fix (gps_chain=False).
 
 import dataclasses
 import os
+import tempfile
 
 import numpy as np
 import pytest
@@ -26,7 +27,8 @@ FS = 4_000_000.0
 DUR = 26.0     # GPS needs a full (1,2,3) subframe cycle after lock: <= 24 s
 GPS_PRNS = (1, 3, 4, 5)
 GAL_PRNS = (11, 12, 13, 14, 15)
-_CACHE = "/tmp/gnss_tpu_fixture_hybrid_v2.npy"
+_CACHE = os.path.join(tempfile.gettempdir(),
+                      "gnss_fixture_hybrid_v2.npy")
 
 
 def _hybrid_ephemerides():

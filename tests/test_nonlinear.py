@@ -3,7 +3,7 @@
 Mirrors the reference's cubature_filter_test / unscented_filter_test
 strategy (tests/unit-tests/.../tracking): on a linear-Gaussian system
 the sigma-point filters must agree with the exact Kalman filter; on a
-nonlinear measurement they must converge; and TPU-first, the pure
+nonlinear measurement they must converge; and batched, the pure
 functions must jit and vmap over a channel batch."""
 
 import jax
@@ -87,7 +87,7 @@ def test_cubature_converges_nonlinear_measurement():
 
 
 def test_sigma_rules_jit_and_vmap_over_channels():
-    """TPU contract: one jitted vmapped call advances a whole channel
+    """Batched contract: one jitted vmapped call advances a whole channel
     batch of independent filters."""
     n_ch, nx = 8, 3
     F = jnp.eye(nx) * 0.99

@@ -1,7 +1,7 @@
 """Direct unit tests of the block-processing tracking kernel
 (models.tracking_block) against the per-epoch kernel on identical
 TrackState — prompts, sample bookkeeping, Doppler and code phase must
-agree within tight numeric bounds (VERDICT r3 weak #3/#4).
+agree within tight numeric bounds.
 
 Reference analogue: the dump-compare discipline of
 src/tests/unit-tests/signal-processing-blocks/tracking/ applied between
@@ -10,6 +10,7 @@ the repo's own two kernels.
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from gnss_sim_receiver_tpu.models import tracking as trk
 from gnss_sim_receiver_tpu.models import tracking_block as tb
@@ -219,3 +220,34 @@ def test_block_mode_pullin_from_acquisition_errors():
     p = np.asarray(out["prompt"])[-200:, 0]
     assert np.abs(p.real).mean() > 2.5 * np.abs(p.imag).mean()
     assert float(np.asarray(st.cn0_db_hz)[0]) > 38.0
+
+
+@pytest.mark.parametrize("fs", [2e6, 4e6, 20e6])
+def test_block_fft_route_matches_float64(fs):
+    """The block kernel's FFT route (shared window spectra and Doppler-
+    ramped replica spectra) against NumPy float64 at the kernel's own
+    FFT length (block_fft_size) for each sample rate."""
+    conf = trk.TrackingConf(fs=fs)
+    s0 = conf.nominal_epoch_samples
+    nfft = tb.block_fft_size(conf)
+    rng = np.random.default_rng(int(fs) % 1000)
+    n = 24 * s0
+    x = (rng.standard_normal(n) + 1j * rng.standard_normal(n)
+         ).astype(np.complex64)
+    got = np.asarray(tb._window_spectra(jnp.asarray(x), s0, nfft))
+    xp = np.concatenate([np.zeros(tb._LEAD), x, np.zeros(nfft)])
+    idx = (np.arange(got.shape[0]) * s0)[:, None] + np.arange(nfft)
+    ref = np.fft.fft(xp[idx], axis=-1)
+    assert got.shape == ((n + tb._LEAD - nfft) // s0 + 1, nfft)
+    assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
+
+    codes = np.zeros((3, nfft), np.float32)
+    codes[:, :s0] = rng.choice([-1.0, 1.0], (3, s0))
+    omega = (2 * np.pi * np.array([-4000.0, 0.0, 3100.0]) / fs
+             ).astype(np.float32)
+    got_r = np.asarray(tb._replica_spectra(jnp.asarray(codes),
+                                           jnp.asarray(omega)))
+    ref_r = np.conj(np.fft.fft(
+        codes * np.exp(1j * omega.astype(np.float64)[:, None]
+                       * np.arange(nfft)), axis=-1))
+    assert np.abs(got_r - ref_r).max() <= 1e-5 * np.abs(ref_r).max()
